@@ -5,17 +5,16 @@ for EVERY shipped LD operator:
 
   * BandedLD  - the block-banded einsum operator (sharding-propagation
     collectives inserted by XLA),
-  * SymBandedLD (f32 / int8 / packed int4) - the flagship pallas kernel
-    running as a shard_map with halo + mirror-spill ppermutes riding the
-    cross-process (gloo) collective backend - certifying the kernel's
-    collectives (including the quantization scales and packed4 leaves) in
-    a genuine multi-process deployment, not just on single-process
-    virtual devices, and
+  * SymBandedLD (f32 / int8) - the symmetric operator running as a
+    shard_map with halo + mirror-spill ppermutes riding the cross-process
+    (gloo) collective backend - certifying its collectives (including the
+    quantization scales leaf) in a genuine multi-process deployment, not
+    just on single-process virtual devices, and
   * BlockSparseLD - arbitrary block coordinates (gather/scatter-add
     matvec under sharding propagation).
 
 Also asserts the writer-less aux fetch stays scalar-sized: no (K, M) leaf
-may cross DCN when nobody reads it (core/vamp.py fetch_aux_full).
+may cross processes when nobody reads it (core/vamp.py fetch_aux_full).
 
 Usage: python multiproc_child.py <process_id> <num_processes> <port>
 """
@@ -34,33 +33,30 @@ import numpy as np  # noqa: E402
 def run_parity(op_name: str, mesh, nproc: int, fetched_sizes) -> None:
     import jax.numpy as jnp
 
-    from sgvamp_tpu.config import VampConfig
-    from sgvamp_tpu.core.operators import BandedLD
-    from sgvamp_tpu.core.prior import PriorState
-    from sgvamp_tpu.core.vamp import VampEngine, VampInputs
-    from sgvamp_tpu.data.simulate import simulate_ld_band
-    from sgvamp_tpu.ops.band_kernel import SymBandedLD
+    from sgvamp.config import VampConfig
+    from sgvamp.core.operators import BandedLD
+    from sgvamp.core.prior import PriorState
+    from sgvamp.core.vamp import VampEngine, VampInputs
+    from sgvamp.data.simulate import simulate_ld_band
+    from sgvamp.ops.band_kernel import SymBandedLD
 
     rng = np.random.default_rng(0)
     K, M, B, iters = nproc, 1024, 128, 3
     N = 20000
     band, r, _ = simulate_ld_band(N, M, 64, h2=0.7, lam=0.05, rng=rng,
                                   dtype=np.float64)
-    # sym_int8 / sym_int4: the quantized streamed kernels (per-block /
-    # per-row scales leaves, int4 additionally packed 2-values/byte) over
-    # the same cross-process shard_map - f32 compute, parity at f32 level.
+    # sym_int8: per-block quantized storage (scales leaf) over the same
+    # cross-process shard_map - f32 compute, parity at f32 level.
     # blocksparse: arbitrary block coordinates, sharding-propagation
     # collectives over its gather/scatter-add matvec.
-    quant = op_name in ("sym_int8", "sym_int4", "sym_hybrid")
+    quant = op_name == "sym_int8"
     if op_name.startswith("sym"):
-        sym_dtype = {"sym": None, "sym_int8": "int8", "sym_int4": "int4",
-                     "sym_hybrid": "hybrid"}
         op = SymBandedLD.from_band(band, block_size=B, K=K,
-                                   dtype=sym_dtype[op_name])
+                                   dtype="int8" if quant else None)
     elif op_name == "blocksparse":
         import scipy.sparse
 
-        from sgvamp_tpu.core.operators import BlockSparseLD
+        from sgvamp.core.operators import BlockSparseLD
         dense = np.asarray(BandedLD.from_band(band, block_size=B).to_dense()[0])
         op = BlockSparseLD.from_csr(
             [scipy.sparse.csr_matrix(dense)] * K, block_size=B)
@@ -101,8 +97,7 @@ def run_parity(op_name: str, mesh, nproc: int, fetched_sizes) -> None:
     local_engine = VampEngine(inputs, cfg, prior, gamw=5.0, gam1=1e-6)
     hist_l = local_engine.run(iters, fixed_u=u_seq)
 
-    tol, ptol = ((2e-3, 1e-2) if op_name in ("sym_int4", "sym_hybrid")
-                 else (2e-4, 1e-3) if quant else (1e-9, 1e-8))
+    tol, ptol = (2e-4, 1e-3) if quant else (1e-9, 1e-8)
     for it in range(iters):
         a = np.asarray(hist_s["xhat1"][it])
         b = np.asarray(hist_l["xhat1"][it])
@@ -124,7 +119,7 @@ def run_parity(op_name: str, mesh, nproc: int, fetched_sizes) -> None:
 def main() -> int:
     pid, nproc, port = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
 
-    from sgvamp_tpu.parallel.multihost import make_multihost_mesh, multihost_init
+    from sgvamp.parallel.multihost import make_multihost_mesh, multihost_init
 
     assert multihost_init(f"localhost:{port}", nproc, pid)
     assert jax.process_count() == nproc
@@ -141,7 +136,7 @@ def main() -> int:
             "multihost mesh rows must align with processes")
 
     # Spy on the collective aux fetch to prove the writer-less fast path.
-    import sgvamp_tpu.parallel.multihost as mh
+    import sgvamp.parallel.multihost as mh
 
     fetched_sizes = []
     orig_fetch = mh.fetch_global
@@ -152,8 +147,7 @@ def main() -> int:
 
     mh.fetch_global = spy_fetch
 
-    for op_name in ("banded", "sym", "sym_int8", "sym_int4",
-                    "sym_hybrid", "blocksparse"):
+    for op_name in ("banded", "sym", "sym_int8", "blocksparse"):
         run_parity(op_name, mesh, nproc, fetched_sizes)
         print(f"PARITY OK operator={op_name} process={pid}", flush=True)
 
@@ -172,12 +166,12 @@ def run_fetch_agreement(mesh, nproc: int, pid: int, fetched_sizes) -> None:
 
     import jax.numpy as jnp
 
-    from sgvamp_tpu.config import VampConfig
-    from sgvamp_tpu.core.operators import BandedLD
-    from sgvamp_tpu.core.prior import PriorState
-    from sgvamp_tpu.core.vamp import VampEngine, VampInputs
-    from sgvamp_tpu.data.simulate import simulate_ld_band
-    from sgvamp_tpu.io.writers import OutputWriter
+    from sgvamp.config import VampConfig
+    from sgvamp.core.operators import BandedLD
+    from sgvamp.core.prior import PriorState
+    from sgvamp.core.vamp import VampEngine, VampInputs
+    from sgvamp.data.simulate import simulate_ld_band
+    from sgvamp.io.writers import OutputWriter
 
     rng = np.random.default_rng(3)
     K, M, N = nproc, 512, 20000

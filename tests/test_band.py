@@ -4,9 +4,9 @@ padded-vs-dense engine equivalence that exercises the marker masks."""
 import jax.numpy as jnp
 import numpy as np
 
-from sgvamp_tpu import PriorState, VampConfig, VampEngine, VampInputs
-from sgvamp_tpu.core.operators import BandedLD, DenseLD
-from sgvamp_tpu.data.simulate import band_matvec, band_to_dense, simulate_ld_band
+from sgvamp import PriorState, VampConfig, VampEngine, VampInputs
+from sgvamp.core.operators import BandedLD, DenseLD
+from sgvamp.data.simulate import band_matvec, band_to_dense, simulate_ld_band
 
 
 def test_simulated_band_is_spd_correlation():

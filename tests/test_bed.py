@@ -6,8 +6,8 @@ the dependency gate."""
 import numpy as np
 import pytest
 
-from sgvamp_tpu.data.bed import MAGIC, read_bed, write_bed
-from sgvamp_tpu.data.simulate import simulate_from_bed
+from sgvamp.data.bed import MAGIC, read_bed, write_bed
+from sgvamp.data.simulate import simulate_from_bed
 
 
 def _random_genotypes(rng, N, M, missing=0.0):
@@ -118,8 +118,8 @@ def test_simulate_from_bed_feeds_engine(tmp_path):
     the signal (R computed from the same standardized X)."""
     import jax.numpy as jnp
 
-    from sgvamp_tpu import PriorState, VampConfig, VampEngine, VampInputs
-    from sgvamp_tpu.core.operators import DenseLD
+    from sgvamp import PriorState, VampConfig, VampEngine, VampInputs
+    from sgvamp.core.operators import DenseLD
 
     rng = np.random.default_rng(5)
     N, M, h2, lam = 2000, 64, 0.8, 0.25
@@ -145,7 +145,7 @@ def test_cli_phen_subcommand(tmp_path):
     """`simulate phen` (reference sim_phen.py's CLI role) runs on the
     vendored reader and writes the reference's file set: _phen/_bet/_r,
     no _R (sim_phen.py:61-63)."""
-    from sgvamp_tpu.cli import simulate as cli_sim
+    from sgvamp.cli import simulate as cli_sim
 
     rng = np.random.default_rng(2)
     G = _random_genotypes(rng, 50, 16)

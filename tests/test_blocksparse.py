@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import scipy.sparse
 
-from sgvamp_tpu import PriorState, VampConfig, VampEngine, VampInputs
-from sgvamp_tpu.core.operators import BandedLD, BlockSparseLD, DenseLD
+from sgvamp import PriorState, VampConfig, VampEngine, VampInputs
+from sgvamp.core.operators import BandedLD, BlockSparseLD, DenseLD
 
 
 def _sparse_ld(rng, M, bw, long_range):
@@ -105,7 +105,7 @@ def test_out_of_band_entry_changes_result_and_blocksparse_keeps_it():
     h_dense = run(DenseLD(mats=jnp.asarray(dense)), M)
     h_bs = run(BlockSparseLD.from_csr([R], block_size=B), BlockSparseLD.from_csr([R], block_size=B).M)
     # banded operator at a bandwidth that cannot reach the long-range block
-    from sgvamp_tpu.data.loaders import csr_to_band
+    from sgvamp.data.loaders import csr_to_band
     band, bw, dropped = csr_to_band(R, bandwidth=16)
     assert dropped > 0, "the long-range entries must be outside the band"
     h_band = run(BandedLD.from_band(band, block_size=B), BandedLD.from_band(band, block_size=B).M)
@@ -125,8 +125,8 @@ def test_out_of_band_entry_changes_result_and_blocksparse_keeps_it():
 
 def test_blocksparse_sharded_parity():
     """Block-sparse matvec under a (cohort, shard) mesh matches unsharded."""
-    from sgvamp_tpu.core.vamp import init_state, vamp_step
-    from sgvamp_tpu.parallel.sharding import make_mesh, shard_inputs, shard_state
+    from sgvamp.core.vamp import init_state, vamp_step
+    from sgvamp.parallel.sharding import make_mesh, shard_inputs, shard_state
 
     rng = np.random.default_rng(3)
     M, B, K = 1024, 128, 2

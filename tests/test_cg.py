@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 from scipy.sparse.linalg import cg as scipy_cg
 
-from sgvamp_tpu.core.cg import cg_batched
+from sgvamp.core.cg import cg_batched
 
 
 def _spd(rng, M, cond=10.0):

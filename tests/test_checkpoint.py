@@ -6,10 +6,10 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from sgvamp_tpu import PriorState, VampConfig, VampEngine, VampInputs
-from sgvamp_tpu.core.operators import BandedLD
-from sgvamp_tpu.data.simulate import simulate_ld_band
-from sgvamp_tpu.io.checkpoint import CheckpointManager
+from sgvamp import PriorState, VampConfig, VampEngine, VampInputs
+from sgvamp.core.operators import BandedLD
+from sgvamp.data.simulate import simulate_ld_band
+from sgvamp.io.checkpoint import CheckpointManager
 
 
 def _engine(M=200, N=20000, cfg=None):

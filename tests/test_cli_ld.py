@@ -9,8 +9,8 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from sgvamp_tpu.cli import main as cli_main
-from sgvamp_tpu.cli import simulate as cli_sim
+from sgvamp.cli import main as cli_main
+from sgvamp.cli import simulate as cli_sim
 
 
 def _make_cohort_data(tmp_path, tag, variants, coords, R_local, r_local):
@@ -120,48 +120,14 @@ def test_ld_dense_and_banded_agree(two_cohorts, tmp_path):
                                rtol=1e-8, atol=1e-12)
 
 
-def test_int4_production_rtol_warns(tmp_path, caplog):
-    """--ld-dtype int4 with a production CG tolerance logs the recorded
-    screening-only warning (BENCH_AB.json solve_by_dtype); a loose rtol
-    does not."""
-    import logging
-
-    from sgvamp_tpu.cli import main as cli_main
-    from sgvamp_tpu.cli import simulate as cli_sim
-
-    out = tmp_path / "t"
-    assert cli_sim.main([
-        "gen-band", "--out", str(out), "--N", "20000", "--M", "1024",
-        "--h2", "0.7", "--lam", "0.01", "--bandwidth", "64", "--seed", "0"]) == 0
-
-    def run(rtol, name):
-        with caplog.at_level(logging.INFO, logger="sgvamp"):
-            caplog.clear()
-            rc = cli_main.main([
-                "--ld-files", str(out) + "_R.npz",
-                "--r-files", str(out) + "_r.npy",
-                "--out-dir", str(tmp_path / name), "--out-name", "w",
-                "--N", "20000", "--M", "1024", "--iterations", "1",
-                "--platform", "cpu", "--x64", "0", "--dtype", "float32",
-                "--operator", "sym", "--ld-dtype", "int4",
-                "--block-size", "128", "--cg-rtol", rtol,
-                "--prior-probs", "0.99,0.01", "--prior-vars", "0,0.07"])
-        assert rc == 0
-        return [r.message for r in caplog.records
-                if "int4" in r.message and "WARNING" in r.message]
-
-    assert run("1e-5", "prod")      # production tolerance: warns
-    assert not run("1e-2", "loose")  # screening tolerance: silent
-
-
 def test_cli_gen_band_roundtrip(tmp_path):
     """gen-band (biobank-scale generator) writes CLI-ingestible files:
     sparse CSR .npz + r + bet, with the printed matched prior; the driver
     ingests them band-direct and recovers the signal."""
     import csv
 
-    from sgvamp_tpu.cli import main as cli_main
-    from sgvamp_tpu.cli import simulate as cli_sim
+    from sgvamp.cli import main as cli_main
+    from sgvamp.cli import simulate as cli_sim
 
     out = tmp_path / "t"
     rc = cli_sim.main([

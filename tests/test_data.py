@@ -9,10 +9,10 @@ import pandas as pd
 import pytest
 import scipy.sparse
 
-from sgvamp_tpu.data import harmonize as hz
-from sgvamp_tpu.data import loaders
-from sgvamp_tpu.data.plink import ld_to_npz, linear_to_npy
-from sgvamp_tpu.data.simulate import simulate_multi, simulate_single
+from sgvamp.data import harmonize as hz
+from sgvamp.data import loaders
+from sgvamp.data.plink import ld_to_npz, linear_to_npy
+from sgvamp.data.simulate import simulate_multi, simulate_single
 
 
 def _write_bim(path, variants, coords):
@@ -257,3 +257,106 @@ def test_estimate_bandwidth():
     R[0, 3] = R[3, 0] = 0.5
     assert loaders.estimate_bandwidth(R) == 3
     assert loaders.estimate_bandwidth(scipy.sparse.csr_matrix(R)) == 3
+
+
+# ---------------------------------------------------------------------------
+# stdlib table readers vs the pandas readers they replace
+# ---------------------------------------------------------------------------
+
+def test_linear_reader_matches_pandas(tmp_path):
+    from sgvamp.data import tables
+
+    rng = np.random.default_rng(4)
+    beta = rng.normal(size=50)
+    beta[[3, 17]] = np.nan
+    df = pd.DataFrame({"CHR": 1, "SNP": [f"rs{i}" for i in range(50)],
+                       "BP": np.arange(50) * 7, "A1": "A", "TEST": "ADD",
+                       "NMISS": 100, "BETA": beta, "STAT": 0.0, "P": 0.5})
+    path = tmp_path / "g.assoc.linear"
+    df.to_csv(path, sep=" ", index=False, na_rep="NA")
+    # round_trip: correctly rounded like float(); pandas' default fast
+    # parser can land 1 ulp away
+    want = pd.read_table(path, sep=r"\s+", float_precision="round_trip")
+    got = tables.read_columns(str(path))
+    assert list(got) == list(want.columns)
+    np.testing.assert_array_equal(tables.to_float(got["BETA"]),
+                                  want["BETA"].to_numpy(np.float64))
+    assert got["SNP"] == list(want["SNP"])
+    r = loaders.load_r(str(path), 50, 400)
+    np.testing.assert_array_equal(
+        r, np.nan_to_num(want["BETA"].to_numpy(np.float64)) * np.sqrt(400))
+
+
+def test_ld_table_python_reader_matches_pandas(tmp_path, monkeypatch):
+    monkeypatch.setenv("SGVAMP_NO_NATIVE", "1")
+    rng = np.random.default_rng(5)
+    snps = [f"rs{i}" for i in range(30)]
+    a = rng.integers(0, 29, 60)
+    b = a + rng.integers(1, 3, 60).clip(max=29 - a)
+    ld = pd.DataFrame({"CHR_A": 1, "BP_A": a, "SNP_A": [snps[i] for i in a],
+                       "CHR_B": 1, "BP_B": b, "SNP_B": [snps[i] for i in b],
+                       "R": rng.uniform(-1, 1, 60)})
+    path = tmp_path / "p.ld"
+    ld.to_csv(path, sep="\t", index=False)
+    want = pd.read_table(path, sep=r"\s+", float_precision="round_trip")
+    vindex = {s: i for i, s in enumerate(snps)}
+    rows, cols, vals = loaders.load_ld_table(str(path), vindex)
+    np.testing.assert_array_equal(rows, [vindex[s] for s in want["SNP_A"]])
+    np.testing.assert_array_equal(cols, [vindex[s] for s in want["SNP_B"]])
+    np.testing.assert_array_equal(vals, want["R"].to_numpy(np.float64))
+
+
+def test_harmonize_matches_pandas_outer_merge(tmp_path):
+    """Same variant order, index maps and merged .bim rows as the pandas
+    outer merge + coordinate sort it replaces."""
+    rng = np.random.default_rng(6)
+    pool = [f"rs{i}" for i in rng.permutation(300)]
+    coord = {v: int(c) for v, c in zip(pool, rng.permutation(300) * 10 + 5)}
+    paths = []
+    for k in range(3):
+        vs = [pool[i] for i in sorted(rng.choice(300, 120, replace=False))]
+        paths.append(str(tmp_path / f"c{k}.bim"))
+        _write_bim(paths[-1], vs, [coord[v] for v in vs])
+    out_bim = tmp_path / "merged.bim"
+    panel = hz.harmonize(paths, [100, 300, 200], out_bim_path=str(out_bim))
+
+    bims = [pd.read_table(p, sep=r"\s+", header=None, names=hz.BIM_COLUMNS)
+            for p in paths]
+    ref = bims[0]
+    for k in range(1, 3):
+        ref = pd.merge(ref, bims[k], on=["Variant"], how="outer",
+                       suffixes=("", "_y"))
+        for col in [c for c in hz.BIM_COLUMNS if c != "Variant"]:
+            ref[col] = ref[col].fillna(ref[col + "_y"])
+        ref = ref[hz.BIM_COLUMNS]
+    ref = ref.sort_values(by=["Coordinate"], kind="stable")
+    assert panel.variants == list(ref["Variant"])
+    idx = {v: i for i, v in enumerate(panel.variants)}
+    for k in range(3):
+        np.testing.assert_array_equal(panel.i_maps[k],
+                                      bims[k]["Variant"].map(idx).to_numpy())
+    merged = pd.read_table(out_bim, sep=r"\s+", header=None,
+                           names=hz.BIM_COLUMNS)
+    assert list(merged["Variant"]) == list(ref["Variant"])
+    np.testing.assert_array_equal(merged["Coordinate"].to_numpy(np.float64),
+                                  ref["Coordinate"].to_numpy(np.float64))
+
+
+def test_harmonize_one_cohort_keeps_file_order_on_tied_coordinates(tmp_path):
+    """One cohort: its file order, then a stable Coordinate sort. Two
+    chromosomes that reuse the same coordinates tie on every marker."""
+    rng = np.random.default_rng(7)
+    rows = [(chrom, f"rs{chrom}_{i}", c) for chrom in (1, 2)
+            for i, c in enumerate(sorted(rng.choice(40, 25, replace=False)))]
+    path = tmp_path / "one.bim"
+    with open(path, "w") as f:
+        for chrom, rs, c in rows:
+            f.write(f"{chrom}\t{rs}\t0\t{c}\tA\tG\n")
+    panel = hz.harmonize([str(path)], [100])
+    want = [rs for _, rs, _ in sorted(rows, key=lambda r: r[2])]  # stable
+    assert panel.variants == want
+    bim = pd.read_table(path, sep=r"\s+", header=None, names=hz.BIM_COLUMNS)
+    assert panel.variants == list(
+        bim.sort_values(by=["Coordinate"], kind="stable")["Variant"])
+    idx = {v: i for i, v in enumerate(want)}
+    np.testing.assert_array_equal(panel.i_maps[0], [idx[rs] for _, rs, _ in rows])

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sgvamp_tpu.core.denoiser import combine_cohorts, posterior_mean_and_slope
+from sgvamp.core.denoiser import combine_cohorts, posterior_mean_and_slope
 
 
 def _per_marker_reference(rs, gam1s, a, lam, omegas, sigmas):

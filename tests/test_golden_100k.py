@@ -15,9 +15,9 @@ import numpy as np
 import pytest
 import scipy.sparse
 
-from sgvamp_tpu import PriorState, VampConfig, VampEngine, VampInputs
-from sgvamp_tpu.core.operators import BandedLD
-from sgvamp_tpu.data.simulate import simulate_ld_band
+from sgvamp import PriorState, VampConfig, VampEngine, VampInputs
+from sgvamp.core.operators import BandedLD
+from sgvamp.data.simulate import simulate_ld_band
 
 from oracle import ReferenceOracle
 

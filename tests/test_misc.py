@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import pytest
 import scipy.sparse
 
-from sgvamp_tpu import PriorState, VampConfig, VampEngine, VampInputs
-from sgvamp_tpu.cli import main as cli_main
-from sgvamp_tpu.core.operators import DenseLD
-from sgvamp_tpu.data import loaders
-from sgvamp_tpu.data.simulate import band_to_dense, simulate_single
+from sgvamp import PriorState, VampConfig, VampEngine, VampInputs
+from sgvamp.cli import main as cli_main
+from sgvamp.core.operators import DenseLD
+from sgvamp.data import loaders
+from sgvamp.data.simulate import band_to_dense, simulate_single
 
 
 def test_csr_to_band_roundtrip():
@@ -147,7 +147,7 @@ def test_rho_anneal_schedule():
 
 
 def test_phase_timers():
-    from sgvamp_tpu.utils.profiling import PhaseTimers
+    from sgvamp.utils.profiling import PhaseTimers
     import time as _time
     t = PhaseTimers()
     with t.phase("a"):
@@ -166,7 +166,7 @@ def test_simulate_phen_bed_reader_fallback(tmp_path):
     the vendored PLINK1 reader (data/bed.py) instead of failing (the
     reference hard-imports bed_reader, simulation/sim_phen.py:5). A
     missing file still errors clearly (companion .fam/.bim lookup)."""
-    from sgvamp_tpu.data.simulate import simulate_from_bed
+    from sgvamp.data.simulate import simulate_from_bed
     try:
         import bed_reader  # noqa: F401
         pytest.skip("bed_reader installed; fallback not exercised")
@@ -174,7 +174,7 @@ def test_simulate_phen_bed_reader_fallback(tmp_path):
         pass
     with pytest.raises(FileNotFoundError, match=".fam"):
         simulate_from_bed(str(tmp_path / "x.bed"), M=10)
-    from sgvamp_tpu.data.bed import write_bed
+    from sgvamp.data.bed import write_bed
     rng = np.random.default_rng(0)
     write_bed(str(tmp_path / "y.bed"),
               rng.binomial(2, 0.4, size=(20, 10)).astype(np.float64))
@@ -186,7 +186,7 @@ def test_simulate_phen_bed_reader_fallback(tmp_path):
 def test_alignment_zero_norm_guard():
     """An all-zero xhat1 must produce alignment 0.0, not a NaN metrics
     row (alignment divides by ||xhat1||)."""
-    from sgvamp_tpu.core.vamp import alignment_l2
+    from sgvamp.core.vamp import alignment_l2
 
     x0 = np.asarray([1.0, 2.0, 3.0])
     al, l2 = alignment_l2(np.zeros(3), x0)
@@ -198,7 +198,7 @@ def test_alignment_zero_norm_guard():
 def test_load_true_signal_strict_length(tmp_path):
     """Wrong-length signal files are rejected, never truncated or
     zero-padded silently (a mismatched panel corrupts every metric)."""
-    from sgvamp_tpu.data.loaders import load_true_signal
+    from sgvamp.data.loaders import load_true_signal
 
     good = np.arange(8, dtype=np.float64)
     np.save(tmp_path / "x.npy", good)
@@ -223,7 +223,7 @@ def test_spec_for_guards_giant_cohort_axis():
     fail loudly if a mesh's cohort axis reaches the threshold."""
     import jax
 
-    from sgvamp_tpu.parallel.sharding import MARKER_VEC_MIN, spec_for
+    from sgvamp.parallel.sharding import MARKER_VEC_MIN, spec_for
 
     class FakeMesh:
         shape = {"cohort": MARKER_VEC_MIN, "shard": 1}
@@ -231,7 +231,7 @@ def test_spec_for_guards_giant_cohort_axis():
     with pytest.raises(AssertionError, match="MARKER_VEC_MIN"):
         spec_for((MARKER_VEC_MIN,), FakeMesh())
     # normal meshes: the convention applies
-    from sgvamp_tpu.parallel.sharding import make_mesh
+    from sgvamp.parallel.sharding import make_mesh
 
     mesh = make_mesh(1, 1, devices=jax.devices()[:1])
     assert spec_for((8,), mesh) == jax.sharding.PartitionSpec("cohort")

@@ -5,7 +5,7 @@ against a single-device run asserted inside each child.
 
 This is the CPU-cluster analogue of the reference's `mpirun -np K` launch
 (reference src/main.py:16-18, README.md:6-12): one process per host, gloo
-collectives standing in for ICI/DCN.
+collectives standing in for the interconnect.
 """
 
 import os
@@ -65,7 +65,6 @@ def test_multihost_init_noop_without_config(monkeypatch):
     """Single-host runs must not require any of this: multihost_init is a
     no-op without a coordinator address (flag or env)."""
     monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
-    monkeypatch.delenv("TPU_WORKER_HOSTNAMES", raising=False)
-    from sgvamp_tpu.parallel.multihost import multihost_init
+    from sgvamp.parallel.multihost import multihost_init
 
     assert multihost_init() is False

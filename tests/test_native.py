@@ -8,9 +8,9 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from sgvamp_tpu import native
-from sgvamp_tpu.data import loaders
-from sgvamp_tpu.data.simulate import band_to_dense
+from sgvamp import native
+from sgvamp.data import loaders
+from sgvamp.data.simulate import band_to_dense
 
 
 def _write_ld(path, rows, cols, vals, variants):
@@ -146,7 +146,7 @@ def test_band_pack_i8_native_matches_numpy(lib_available):
     and >1 values."""
     import os
 
-    from sgvamp_tpu.ops.band_kernel import SymBandedLD
+    from sgvamp.ops.band_kernel import SymBandedLD
 
     rng = np.random.default_rng(7)
     for M, bw, B in ((1000, 96, 128), (512, 64, 64), (300, 300, 128)):
@@ -257,7 +257,7 @@ def test_csr_to_band_duplicate_entries_sum(lib_available):
     251-257), not last-write-wins."""
     import scipy.sparse
 
-    from sgvamp_tpu.data import loaders
+    from sgvamp.data import loaders
 
     M = 8
     rows = np.asarray([0, 1, 1, 3, 3, 3])
@@ -294,32 +294,3 @@ def test_csr_to_band_duplicate_entries_sum(lib_available):
             if 0 <= i + d < M:
                 dense[i, i + d] = band_py[i, bw + d]
     np.testing.assert_allclose(dense, want, rtol=1e-7)
-
-
-def test_band_pack_hybrid_bit_identical(lib_available):
-    """Native hybrid pack == the numpy dtype='hybrid' path, byte for byte
-    (packed int4 nibbles, int8 halves, per-row scales), including pad
-    rows and past-matrix zero blocks."""
-    from sgvamp_tpu.data.simulate import simulate_ld_band
-    from sgvamp_tpu.ops.band_kernel import SymBandedLD
-
-    rng = np.random.default_rng(7)
-    for M, bw, B in [(500, 96, 64), (768, 200, 128), (130, 40, 64)]:
-        band, _, _ = simulate_ld_band(10000, M, bw, rng=rng,
-                                      dtype=np.float32)
-        got = native.band_pack_hybrid(band, B)
-        assert got is not None
-        upper_n, scales_n = got
-        import os
-        os.environ["SGVAMP_NO_NATIVE"] = "1"
-        try:
-            op = SymBandedLD.from_band(band, block_size=B, dtype="hybrid")
-        finally:
-            del os.environ["SGVAMP_NO_NATIVE"]
-        np.testing.assert_array_equal(upper_n, np.asarray(op.upper[0]),
-                                      err_msg=f"M={M} bw={bw} B={B}")
-        np.testing.assert_array_equal(scales_n, np.asarray(op.scales[0]))
-        # and the fast path actually engages through from_band
-        op_fast = SymBandedLD.from_band(band, block_size=B, dtype="hybrid")
-        assert op_fast.hybrid
-        np.testing.assert_array_equal(np.asarray(op_fast.upper[0]), upper_n)

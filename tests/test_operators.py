@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sgvamp_tpu.core.operators import BandedLD, DenseLD
+from sgvamp.core.operators import BandedLD, DenseLD
 
 
 def _banded_dense(rng, K, M, band):

@@ -1,11 +1,8 @@
-"""SymBandedLD pallas-kernel tests (interpret mode on CPU).
-
-Measured on chip at M=512k, bandwidth 256, B=256 (same-run A/B): the
-streamed sym kernel saturates the chip's measured HBM read bandwidth
-(1.21 ms/pass vs a 1.22 ms pure-read reduction over the same bytes) and
-beats both the resident flavor (1.33 ms) and the full-band einsum operator
-(1.57 ms, 1.5x the bytes). int8 per-block quantized storage halves LD
-traffic again (opt-in, dtype="int8" at from_band).
+"""SymBandedLD tests: the plain-jnp reference and the Pallas (Triton route)
+kernel, the latter in interpret mode on CPU. Both are compared with a
+float64 dense matrix built from the same stored blocks, and with each
+other. The compiled kernel itself runs only on a GPU (the `gpu` marker
+below; chip_smoke.py phase 1 checks it at M=524,288).
 """
 
 import dataclasses
@@ -15,20 +12,98 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sgvamp_tpu import PriorState, VampConfig, VampEngine, VampInputs
-from sgvamp_tpu.core.operators import BandedLD
-from sgvamp_tpu.data.simulate import band_to_dense, simulate_ld_band
-from sgvamp_tpu.ops.band_kernel import SymBandedLD
+from sgvamp import PriorState, VampConfig, VampEngine, VampInputs
+from sgvamp.core.operators import BandedLD
+from sgvamp.data.simulate import band_to_dense, simulate_ld_band
+from sgvamp.ops import band_kernel as bk
+from sgvamp.ops.band_kernel import SymBandedLD
+
+# (B, bandwidth): block half-bandwidths hb = 0, 1, 4, 1, 2
+SHAPES = [(64, 0), (64, 40), (64, 200), (128, 48), (128, 200)]
+STORAGE = ["float32", "bfloat16", "int8"]
 
 
+def _band(M, bw, seed):
+    rng = np.random.default_rng(seed)
+    if bw == 0:  # diagonal-only panel: no mirrors at all
+        return rng.normal(size=(M, 1))
+    return simulate_ld_band(10000, M, bandwidth=bw, rng=rng,
+                            dtype=np.float64)[0]
+
+
+def _problem(B, bw, storage, K, S, M=700, seed=0):
+    """Operator over K independent panels (M not a block multiple), S*K
+    right-hand sides, and the f64 dense matrices of the stored blocks."""
+    ops = [SymBandedLD.from_band(_band(M, bw, seed + k), block_size=B,
+                                 dtype=storage) for k in range(K)]
+    op = SymBandedLD(
+        upper=jnp.concatenate([o.upper for o in ops], axis=0),
+        scales=(jnp.concatenate([o.scales for o in ops], axis=0)
+                if ops[0].scales is not None else None))
+    dense = np.asarray(op.to_dense(), np.float64)
+    x = np.random.default_rng(seed + 99).normal(size=(S * K, op.M))
+    return op, dense, x
+
+
+def _dense_matvec(dense, x, K):
+    """Rows s*K + k of x multiply cohort k's dense matrix."""
+    y = np.empty_like(x)
+    for j in range(x.shape[0]):
+        y[j] = dense[j % K] @ x[j]
+    return y
+
+
+def _close(y, want, tol):
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(np.asarray(y, np.float64) / scale, want / scale,
+                               atol=tol)
+
+
+def _with(op, impl):
+    return dataclasses.replace(op, impl=impl)
+
+
+@pytest.mark.parametrize("K,S", [(1, 1), (2, 2)])
+@pytest.mark.parametrize("B,bw", SHAPES)
+@pytest.mark.parametrize("storage", STORAGE)
+def test_kernel_matches_dense(storage, B, bw, K, S):
+    """Interpret-mode kernel vs f64 dense of the stored blocks: f32
+    accumulation over at most 2hb+1 blocks per row."""
+    op, dense, x = _problem(B, bw, storage, K, S)
+    y = _with(op, "interpret").matvec(jnp.asarray(x))
+    _close(y, _dense_matvec(dense, x, K), 1e-5)
+
+
+@pytest.mark.parametrize("B,bw", SHAPES)
+@pytest.mark.parametrize("storage", STORAGE)
+def test_reference_matches_dense(storage, B, bw):
+    op, dense, x = _problem(B, bw, storage, K=2, S=2, seed=3)
+    y = _with(op, "reference").matvec(jnp.asarray(x))
+    _close(y, _dense_matvec(dense, x, 2), 1e-5)
+
+
+@pytest.mark.parametrize("B,bw", SHAPES)
+@pytest.mark.parametrize("storage", STORAGE)
+def test_kernel_equals_reference(storage, B, bw):
+    """Same f32 arithmetic on the same blocks: only summation order differs."""
+    op, _, x = _problem(B, bw, storage, K=2, S=2, seed=5)
+    xj = jnp.asarray(x, jnp.float32)
+    yk = _with(op, "interpret").matvec(xj)
+    yr = _with(op, "reference").matvec(xj)
+    _close(yk, np.asarray(yr, np.float64), 1e-6)
+
+
+@pytest.mark.parametrize("impl", ["reference", "interpret"])
 @pytest.mark.parametrize("B,bw", [(128, 48), (128, 200), (256, 100)])
-def test_matches_dense(B, bw):
+def test_matches_dense(B, bw, impl):
+    """float64 storage computes in float64: exact to rounding, including the
+    regularization and the identity rows of padded markers."""
     rng = np.random.default_rng(0)
     M = 700  # deliberately not a block multiple
     band, _, _ = simulate_ld_band(10000, M, bandwidth=bw, rng=rng,
                                   dtype=np.float64)
     R = band_to_dense(band)
-    op = SymBandedLD.from_band(band, block_size=B, s=0.1)
+    op = _with(SymBandedLD.from_band(band, block_size=B, s=0.1), impl)
     x = rng.normal(size=(2, op.M))
     y = np.asarray(op.matvec(jnp.asarray(x)))
     want = x[:, :M] @ (0.9 * R + 0.1 * np.eye(M)).T
@@ -37,59 +112,9 @@ def test_matches_dense(B, bw):
     np.testing.assert_allclose(y[:, M:], x[:, M:], atol=1e-12)
 
 
-@pytest.mark.parametrize("B,bw", [(128, 48), (128, 200)])
-def test_window_flavor_matches_dense(B, bw):
-    """The window fast path (one matmul per row over the (hb+1)B window)
-    must equal the per-diagonal path, including edge rows."""
-    rng = np.random.default_rng(2)
-    M = 700
-    band, _, _ = simulate_ld_band(10000, M, bandwidth=bw, rng=rng,
-                                  dtype=np.float64)
-    R = band_to_dense(band)
-    op = dataclasses.replace(
-        SymBandedLD.from_band(band, block_size=B, s=0.1), window=True)
-    x = rng.normal(size=(2, op.M))
-    y = np.asarray(op.matvec(jnp.asarray(x)))
-    want = x[:, :M] @ (0.9 * R + 0.1 * np.eye(M)).T
-    np.testing.assert_allclose(y[:, :M], want, rtol=1e-10, atol=1e-12)
-    np.testing.assert_allclose(y[:, M:], x[:, M:], atol=1e-12)
-
-
-@pytest.mark.parametrize("B,bw", [(128, 48), (128, 200), (256, 100)])
-def test_slab_layout_matches_dense(B, bw):
-    """The slab layout (pre-transposed stacked upper blocks, one window
-    matmul per row) must equal the dense operator, including edge rows
-    whose x-window runs past M into the zero pad."""
-    rng = np.random.default_rng(3)
-    M = 700
-    band, _, _ = simulate_ld_band(10000, M, bandwidth=bw, rng=rng,
-                                  dtype=np.float64)
-    R = band_to_dense(band)
-    op = SymBandedLD.from_band(band, block_size=B, s=0.1, layout="slab")
-    assert op.hb == -(-bw // B) and op.B == B
-    x = rng.normal(size=(2, op.M))
-    y = np.asarray(op.matvec(jnp.asarray(x)))
-    want = x[:, :M] @ (0.9 * R + 0.1 * np.eye(M)).T
-    np.testing.assert_allclose(y[:, :M], want, rtol=1e-10, atol=1e-12)
-    np.testing.assert_allclose(y[:, M:], x[:, M:], atol=1e-12)
-    # to_dense rebuilds the same matrix from slab storage
-    np.testing.assert_allclose(
-        np.asarray(op.to_dense())[0],
-        np.asarray(SymBandedLD.from_band(band, block_size=B, s=0.1).to_dense())[0],
-        atol=0)
-
-
-def test_fits_vmem_ceiling():
-    """The VMEM-resident design fits at the bench size and not at M=1M
-    (measured: 512k/bf16 runs, 1M OOMs the 16MiB scoped limit by 10MB)."""
-    assert SymBandedLD.fits_vmem(524288, 2, 2)
-    assert not SymBandedLD.fits_vmem(1048576, 2, 2)
-    assert not SymBandedLD.fits_vmem(1048576, 2, 4)
-
-
 def test_bf16_storage_f32_accumulate():
-    """bf16 upper blocks: the kernel must accumulate in f32 (output dtype
-    promotion) and stay within bf16 rounding of the f64 band result."""
+    """bf16 upper blocks accumulate in f32 and stay within bf16 rounding of
+    the f64 band result."""
     rng = np.random.default_rng(3)
     M = 512
     band, _, _ = simulate_ld_band(10000, M, bandwidth=64, rng=rng,
@@ -98,179 +123,189 @@ def test_bf16_storage_f32_accumulate():
     op = SymBandedLD.from_band(band, block_size=128, dtype="bfloat16")
     assert str(op.upper.dtype) == "bfloat16"
     x = rng.normal(size=(2, op.M))
-    y = np.asarray(op.matvec(jnp.asarray(x, jnp.float32)), np.float64)
-    want = x[:, :M] @ R.T
-    scale = np.abs(want).max()
-    np.testing.assert_allclose(y[:, :M] / scale, want / scale, atol=2e-2)
+    for impl in ("reference", "interpret"):
+        y = _with(op, impl).matvec(jnp.asarray(x, jnp.float32))
+        assert y.dtype == jnp.float32
+        _close(y[:, :M], x[:, :M] @ R.T, 2e-2)
 
 
-@pytest.mark.parametrize("B,bw,G", [(128, 48, 0), (128, 200, 0), (256, 100, 0),
-                                    (128, 200, 2), (128, 48, 2), (128, 100, 3)])
-def test_streamed_matches_dense(B, bw, G):
-    """The streamed (HBM-chunked x/y + carry) kernel must equal the dense
-    result at every chunk size, including G=hb edge chunking where every
-    mirror crosses a chunk boundary through the carry."""
-    rng = np.random.default_rng(4)
-    M = 700
-    band, _, _ = simulate_ld_band(10000, M, bandwidth=bw, rng=rng,
-                                  dtype=np.float64)
-    R = band_to_dense(band)
-    op = dataclasses.replace(
-        SymBandedLD.from_band(band, block_size=B, s=0.1),
-        mode="streamed", rows_per_step=G)
-    x = rng.normal(size=(2, op.M))
-    y = np.asarray(op.matvec(jnp.asarray(x)))
-    want = x[:, :M] @ (0.9 * R + 0.1 * np.eye(M)).T
-    np.testing.assert_allclose(y[:, :M], want, rtol=1e-10, atol=1e-12)
-    np.testing.assert_allclose(y[:, M:], x[:, M:], atol=1e-12)
-
-
-@pytest.mark.parametrize("B,bw,G", [(128, 48, 0), (128, 200, 2), (256, 100, 0),
-                                    (128, 100, 3)])
-def test_streamed_slab_matches_dense(B, bw, G):
-    """Streamed slab flavor (window matmul + dot_general mirrors over
-    HBM-chunked x/y) must equal the dense result at every chunk size."""
-    rng = np.random.default_rng(6)
-    M = 700
-    band, _, _ = simulate_ld_band(10000, M, bandwidth=bw, rng=rng,
-                                  dtype=np.float64)
-    R = band_to_dense(band)
-    op = dataclasses.replace(
-        SymBandedLD.from_band(band, block_size=B, s=0.1, layout="slab"),
-        mode="streamed", rows_per_step=G)
-    x = rng.normal(size=(2, op.M))
-    y = np.asarray(op.matvec(jnp.asarray(x)))
-    want = x[:, :M] @ (0.9 * R + 0.1 * np.eye(M)).T
-    np.testing.assert_allclose(y[:, :M], want, rtol=1e-10, atol=1e-12)
-    np.testing.assert_allclose(y[:, M:], x[:, M:], atol=1e-12)
-
-
-def test_streamed_matches_dense_K2():
-    """K cohorts ride the leading grid axis; the carry must reset between
-    cohorts (row 0 of cohort k+1 must not absorb cohort k's tail spill)."""
-    rng = np.random.default_rng(5)
-    M, B, bw = 512, 128, 96
-    bands = [simulate_ld_band(10000, M, bandwidth=bw, rng=rng,
-                              dtype=np.float64)[0] for _ in range(2)]
-    ops = [SymBandedLD.from_band(b, block_size=B) for b in bands]
-    op = dataclasses.replace(
-        ops[0], upper=jnp.concatenate([o.upper for o in ops], axis=0),
-        mode="streamed")
-    x = rng.normal(size=(4, op.M))  # S=2 RHS x K=2 cohorts
-    y = np.asarray(op.matvec(jnp.asarray(x)))
-    for k, band in enumerate(bands):
-        R = band_to_dense(band)
-        for s in range(2):
-            np.testing.assert_allclose(y[s * 2 + k], x[s * 2 + k] @ R.T,
-                                       rtol=1e-10, atol=1e-12)
-
-
-def test_streamed_diagonal_only_band():
-    """hb=0 (bandwidth fits inside a block... bandwidth 0): no mirrors, no
-    carry traffic - the degenerate shape must still be correct."""
-    rng = np.random.default_rng(6)
-    M, B = 384, 128
-    band = rng.normal(size=(M, 1))
-    op = dataclasses.replace(SymBandedLD.from_band(band, block_size=B),
-                             mode="streamed")
-    assert op.hb == 0
-    x = rng.normal(size=(2, M))
-    y = np.asarray(op.matvec(jnp.asarray(x)))
-    np.testing.assert_allclose(y, x * band[:, 0], rtol=1e-12, atol=1e-13)
-
-
-def test_streamed_spill_two_shard_composition():
-    """spill=True contract used by the sharded path: running the kernel on
-    two half-panels with halo-extended x and adding the exported carry into
-    the next shard's head must reproduce the whole-panel matvec."""
-    from sgvamp_tpu.ops.band_kernel import _sym_band_matvec_streamed
-
-    rng = np.random.default_rng(7)
-    M, B, bw = 1024, 128, 200
-    band, _, _ = simulate_ld_band(10000, M, bandwidth=bw, rng=rng,
-                                  dtype=np.float64)
-    op = SymBandedLD.from_band(band, block_size=B)
-    nb, hb = op.nb, op.hb
-    nb_l = nb // 2
-    x = rng.normal(size=(1, 2, M))
-    xj = jnp.asarray(x)
-    G = 4
-    hbB = max(hb, 1) * B
-    ys, spills = [], []
-    for sh in range(2):
-        ub_l = op.upper[:, sh * nb_l:(sh + 1) * nb_l]
-        x_l = xj[:, :, sh * nb_l * B:(sh + 1) * nb_l * B]
-        if sh == 0:
-            halo = xj[:, :, nb_l * B:nb_l * B + hbB]
-        else:
-            halo = jnp.zeros((1, 2, hbB))  # wraparound leg: zeros
-        pad = jnp.zeros((1, 2, G * B - hbB))
-        x_ext = jnp.concatenate([x_l, halo, pad], axis=2)
-        y_l, spill = _sym_band_matvec_streamed(ub_l, x_ext, nb_l,
-                                               interpret=True,
-                                               rows_per_step=G, spill=True)
-        ys.append(y_l)
-        spills.append(spill)
-    y1 = ys[1].at[:, :, :hbB].add(spills[0])
-    got = np.concatenate([np.asarray(ys[0]), np.asarray(y1)], axis=2)[0]
-    want = np.asarray(op.matvec(xj.reshape(2, M)))
-    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12)
-    # the last shard's spill leaves the global panel: must be exact zeros
-    np.testing.assert_allclose(np.asarray(spills[1]), 0.0, atol=0.0)
-
-
-@pytest.mark.parametrize("B,bw,G", [(128, 48, 0), (128, 200, 2), (256, 100, 0)])
-def test_int8_quantized_matvec(B, bw, G):
-    """int8 per-block quantized storage: the kernel must reproduce the
-    dequantized matrix's matvec EXACTLY (int8 -> bf16 conversion is exact,
-    scale multiply is scalar), and stay within the per-block quantization
-    bound of the unquantized result."""
+@pytest.mark.parametrize("impl", ["reference", "interpret"])
+def test_int8_quantized_matvec(impl):
+    """int8 per-block storage: half the bytes of bf16, the stored matrix's
+    matvec to f32 accuracy, and within the per-block quantization bound
+    (|err| <= max|U|/254) of the unquantized matrix."""
     rng = np.random.default_rng(8)
-    M = 700
-    band, _, _ = simulate_ld_band(10000, M, bandwidth=bw, rng=rng,
+    M, B = 700, 128
+    band, _, _ = simulate_ld_band(10000, M, bandwidth=200, rng=rng,
                                   dtype=np.float64)
     R = band_to_dense(band)
-    op = dataclasses.replace(
-        SymBandedLD.from_band(band, block_size=B, dtype="int8"),
-        rows_per_step=G)
+    op = _with(SymBandedLD.from_band(band, block_size=B, dtype="int8"), impl)
     assert op.quantized and str(op.upper.dtype) == "int8"
     assert op.scales.shape == (1, op.nb, op.hb + 1)
-    # int8 halves traffic vs bf16 (scales add a negligible tail)
-    assert op.bytes_per_pass() < 0.51 * (
-        op.upper.size * 2 + op.scales.size * 4)
+    assert op.bytes_per_pass() < 0.51 * (op.upper.size * 2 + op.scales.size * 4)
     x = rng.normal(size=(2, op.M))
     y = np.asarray(op.matvec(jnp.asarray(x, jnp.float32)), np.float64)
-    # exact vs the dequantized matrix (up to bf16 x-cast + f32 accumulate)
     Rq = np.asarray(op.to_dense(), np.float64)[0]
-    want_q = x.astype(jnp.bfloat16).astype(np.float64) @ Rq.T
-    scale = np.abs(want_q).max()
-    np.testing.assert_allclose(y / scale, want_q / scale, atol=1e-5)
-    # within quantization error of the true matrix
+    _close(y, x @ Rq.T, 1e-5)
     full = np.zeros((op.M, op.M))
     full[:M, :M] = R
     full[M:, M:] = np.eye(op.M - M)
-    want = x @ full.T
-    np.testing.assert_allclose(y / scale, want / scale, atol=2e-2)
+    _close(y, x @ full.T, 2e-2)
 
 
-def test_int8_resident_mode_rejected():
-    """int8 has no resident kernel; forcing mode='resident' must error
-    loudly instead of silently running the streamed flavor (which would
-    mislead resident-vs-streamed A/B benchmarks)."""
-    rng = np.random.default_rng(3)
-    band, _, _ = simulate_ld_band(10000, 256, bandwidth=32, rng=rng,
-                                  dtype=np.float64)
-    op = dataclasses.replace(
-        SymBandedLD.from_band(band, block_size=128, dtype="int8"),
-        mode="resident")
-    with pytest.raises(ValueError, match="no resident kernel"):
-        op.matvec(jnp.ones((2, op.M), jnp.float32))
+@pytest.mark.parametrize("storage", ["float32", "int8"])
+def test_spill_two_shard_composition(storage):
+    """The sharded contract, composed by hand: each half-panel's local
+    kernel over halo-extended x, plus the previous half's mirror spill
+    added into its first hb blocks, reproduces the whole-panel matvec."""
+    op, _, x = _problem(64, 100, storage, K=1, S=2, M=1024, seed=7)
+    nb, hb, B = op.nb, op.hb, op.B
+    nb_l = nb // 2
+    xs = jnp.asarray(x, jnp.float32)[None]  # (K=1, S=2, M)
+    sc = op.scales if op.quantized else jnp.ones(op.upper.shape[:3])
+    ys, spills = [], []
+    for sh in range(2):
+        ub_l = op.upper[:, sh * nb_l:(sh + 1) * nb_l]
+        sc_l = sc[:, sh * nb_l:(sh + 1) * nb_l]
+        x_l = xs[:, :, sh * nb_l * B:(sh + 1) * nb_l * B]
+        halo = (xs[:, :, nb_l * B:(nb_l + hb) * B] if sh == 0
+                else jnp.zeros((1, 2, hb * B)))  # wraparound leg
+        x_ext = jnp.concatenate([x_l, halo], axis=2)
+        ys.append(bk.sym_band_matvec_pallas(ub_l, sc_l, x_ext, interpret=True))
+        spills.append(bk._mirror_spill(ub_l, sc_l if op.quantized else None, x_l))
+    y1 = ys[1].at[:, :, :hb * B].add(spills[0])
+    got = np.concatenate([np.asarray(ys[0]), np.asarray(y1)], axis=2)[0]
+    want = np.asarray(_with(op, "reference").matvec(jnp.asarray(x, jnp.float32)))
+    _close(got, want.astype(np.float64), 1e-6)
+    # the last shard's spill leaves the global panel: exact zeros
+    np.testing.assert_array_equal(np.asarray(spills[1]), 0.0)
+
+
+@pytest.mark.parametrize("n_shard", [2, 4])
+@pytest.mark.parametrize("storage", ["float32", "int8"])
+def test_sharded_kernel_matches_unsharded(storage, n_shard):
+    """shard_map over virtual CPU devices: halo and spill ppermutes around
+    the interpret-mode kernel reproduce the unsharded matvec."""
+    from sgvamp.parallel.sharding import make_mesh, shard_inputs
+
+    op, _, x = _problem(64, 100, storage, K=1, S=2, M=1024, seed=11)
+    op = _with(op, "interpret")
+    xj = jnp.asarray(x, jnp.float32)
+    want = np.asarray(op.matvec(xj), np.float64)
+    mesh = make_mesh(1, n_shard)
+    inputs = VampInputs(op=op, r=xj[:1], a=jnp.asarray([1.0]),
+                        N=jnp.asarray([20000.0]))
+    sh = shard_inputs(inputs, mesh)
+    assert sh.op.mesh is mesh
+    if op.quantized:  # scales shard over block rows with the blocks
+        assert "shard" in str(sh.op.scales.sharding.spec)
+    _close(sh.op.matvec(xj), want, 1e-6)
+
+
+def test_streamed_matches_dense_K2():
+    """K cohorts with different panels: program (i, k) must read cohort k's
+    blocks only (row 0 of cohort 1 must not see cohort 0's tail)."""
+    op, dense, x = _problem(128, 96, "float32", K=2, S=2, M=512, seed=5)
+    y = _with(op, "interpret").matvec(jnp.asarray(x))
+    _close(y, _dense_matvec(dense, x, 2), 1e-5)
+
+
+def test_streamed_diagonal_only_band():
+    """hb=0: no mirrors and no halo - the degenerate shape stays exact."""
+    rng = np.random.default_rng(6)
+    M, B = 384, 128
+    band = rng.normal(size=(M, 1))
+    op = SymBandedLD.from_band(band, block_size=B)
+    assert op.hb == 0
+    x = rng.normal(size=(2, M))
+    for impl in ("reference", "interpret"):
+        y = np.asarray(_with(op, impl).matvec(jnp.asarray(x)))
+        np.testing.assert_allclose(y, x * band[:, 0], rtol=1e-12, atol=1e-13)
+
+
+@pytest.mark.parametrize("backend,impl", [("gpu", "kernel"),
+                                          ("cpu", "reference")])
+def test_dispatch_by_backend(monkeypatch, backend, impl):
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    assert bk._impl_for_backend() == impl
+
+
+@pytest.mark.parametrize("backend", ["METAL", "neuron"])
+def test_dispatch_unknown_backend_raises(monkeypatch, backend):
+    op, _, x = _problem(64, 40, "float32", K=1, S=1, M=256)
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    with pytest.raises(ValueError, match="no implementation for backend"):
+        op.matvec(jnp.asarray(x))
+
+
+def test_cpu_default_is_reference_without_interpreter(monkeypatch):
+    """On the CPU, an operator with no impl runs the plain reference and
+    never reaches the Pallas call (interpret mode only by name)."""
+    def refuse(*a, **k):
+        raise AssertionError("Pallas kernel called without impl='interpret'")
+
+    monkeypatch.setattr(bk, "sym_band_matvec_pallas", refuse)
+    op, dense, x = _problem(64, 40, "int8", K=1, S=2, M=256)
+    _close(op.matvec(jnp.asarray(x)), _dense_matvec(dense, x, 1), 1e-5)
+
+
+def test_unknown_impl_raises():
+    op, _, x = _problem(64, 40, "float32", K=1, S=1, M=256)
+    with pytest.raises(ValueError, match="unknown SymBandedLD impl"):
+        _with(op, "resident").matvec(jnp.asarray(x))
+
+
+def test_kernel_needs_power_of_two_block():
+    op, _, x = _problem(96, 40, "float32", K=1, S=1, M=384)
+    with pytest.raises(ValueError, match="power-of-two block size"):
+        _with(op, "interpret").matvec(jnp.asarray(x))
+
+
+def test_int8_words_full_range_equals_reference():
+    """Raw int8 blocks over the whole range [-127, 127] with arbitrary
+    scales: the word kernel's byte unpacking (sign included) and its
+    interleaved row order agree with the reference."""
+    rng = np.random.default_rng(14)
+    K, nb, hb, B, S = 2, 5, 2, 64, 2
+    upper = jnp.asarray(rng.integers(-127, 128, (K, nb, hb + 1, B, B)), jnp.int8)
+    scales = jnp.asarray(rng.uniform(0.1, 2.0, (K, nb, hb + 1)), jnp.float32)
+    x = jnp.asarray(rng.normal(size=(K, S, nb * B)), jnp.float32)
+    yk = bk.sym_band_matvec_pallas(upper, scales, x, interpret=True)
+    yr = bk.sym_band_matvec_ref(upper, scales, x)
+    _close(yk, np.asarray(yr, np.float64), 1e-6)
+
+
+@pytest.mark.parametrize("K,nb", [(1, 4096), (8, 8192)])
+def test_kernel_operands_fit_32_bit_offsets(monkeypatch, K, nb):
+    """The Triton lowering indexes an operand of at most 2**32 bytes with
+    signed 32-bit element offsets. int8 blocks reach the kernel as int32
+    words, so every operand stays indexable, including the 3.2 GB of
+    blocks of K=8 cohorts at M=1,048,576 (abstract shapes, no memory)."""
+    seen = []
+    real = bk.pl.pallas_call
+
+    def spy(kernel, **kw):
+        call = real(kernel, **kw)
+
+        def run(*args):
+            seen.extend(args)
+            return call(*args)
+        return run
+
+    monkeypatch.setattr(bk.pl, "pallas_call", spy)
+    B, hb, S = 128, 2, 2
+    jax.eval_shape(bk.sym_band_matvec_pallas,
+                   jax.ShapeDtypeStruct((K, nb, hb + 1, B, B), jnp.int8),
+                   jax.ShapeDtypeStruct((K, nb, hb + 1), jnp.float32),
+                   jax.ShapeDtypeStruct((K, S, nb * B), jnp.float32))
+    assert seen[0].dtype == jnp.int32 and seen[0].shape[-1] == B // 4
+    for a in seen:
+        assert a.size * a.dtype.itemsize > 2**32 or a.size <= 2**31
 
 
 def test_int8_engine_close_to_f32():
     """Full VAMP trajectory with int8 LD storage stays close to the f32
-    trajectory (the fixed point is robust to operator quantization at the
-    bf16-comparable level)."""
+    trajectory (the fixed point is robust to operator quantization)."""
     rng = np.random.default_rng(9)
     N, M, lam, h2, iters = 20000, 400, 0.1, 0.7, 4
     band, r, x0 = simulate_ld_band(N, M, bandwidth=32, rng=rng,
@@ -300,7 +335,6 @@ def test_int8_engine_close_to_f32():
         a, b = hists["int8"]["xhat1"][it], hists["f32"]["xhat1"][it]
         denom = np.linalg.norm(b) + 1e-30
         assert np.linalg.norm(a - b) / denom < 0.05, f"iteration {it}"
-    # final estimates agree well where it matters: correlation vs truth
     ca = np.corrcoef(hists["int8"]["xhat1"][-1], hists["f32"]["xhat1"][-1])[0, 1]
     assert ca > 0.999
 
@@ -308,7 +342,7 @@ def test_int8_engine_close_to_f32():
 def test_int8_sharded_matches_unsharded():
     """int8 storage through the shard_map path: the scales leaf must shard
     with the blocks (not replicate via the index-table heuristic)."""
-    from sgvamp_tpu.parallel.sharding import make_mesh, shard_inputs
+    from sgvamp.parallel.sharding import make_mesh, shard_inputs
 
     rng = np.random.default_rng(10)
     M, B, bw = 512, 64, 100
@@ -322,136 +356,9 @@ def test_int8_sharded_matches_unsharded():
                         a=jnp.asarray([1.0]), N=jnp.asarray([20000.0]))
     sh = shard_inputs(inputs, mesh)
     assert sh.op.mesh is mesh
-    # scales sharded over block rows, like the blocks themselves
     assert "shard" in str(sh.op.scales.sharding.spec)
     got = np.asarray(sh.op.matvec(jnp.asarray(x)))
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
-
-
-@pytest.mark.parametrize("B,bw,G", [(128, 48, 0), (128, 200, 2), (256, 100, 0)])
-def test_int4_packed_matvec(B, bw, G):
-    """int4 contiguous-halves packed storage (two values per byte, per-row
-    scales, stripped unit diagonal on the d=0 block): the kernel must
-    reproduce the dequantized matrix's matvec to bf16-compute accuracy,
-    and stay within the (coarser, 4-bit) quantization bound of the
-    unquantized result."""
-    rng = np.random.default_rng(8)
-    M = 700
-    band, _, _ = simulate_ld_band(10000, M, bandwidth=bw, rng=rng,
-                                  dtype=np.float64)
-    R = band_to_dense(band)
-    op = dataclasses.replace(
-        SymBandedLD.from_band(band, block_size=B, dtype="int4"),
-        rows_per_step=G)
-    assert op.packed and not op.quantized
-    assert str(op.upper.dtype) == "int8"
-    assert op.upper.shape[-1] == B // 2  # two values per byte
-    assert op.scales.shape == (1, op.nb, op.hb + 1, B)  # per ROW
-    # int4 quarters traffic vs bf16 (per-row f32 scales add 4/B per block)
-    bf16_bytes = op.nb * (op.hb + 1) * B * B * 2
-    assert op.bytes_per_pass() < (0.25 + 2.5 / B) * bf16_bytes
-    x = rng.normal(size=(2, op.M))
-    y = np.asarray(op.matvec(jnp.asarray(x, jnp.float32)), np.float64)
-    # vs the dequantized matrix: the row orientation applies the per-row
-    # scale on the f32 output (exact); the mirror orientation must fold it
-    # into x across the contraction, costing one extra bf16 round (~2^-8
-    # relative) - so the bound is bf16-compute, not f32-exact like int8.
-    Rq = np.asarray(op.to_dense(), np.float64)[0]
-    want_q = x.astype(jnp.bfloat16).astype(np.float64) @ Rq.T
-    scale = np.abs(want_q).max()
-    np.testing.assert_allclose(y / scale, want_q / scale, atol=5e-4)
-    # within quantization error of the true matrix (16 levels per row)
-    full = np.zeros((op.M, op.M))
-    full[:M, :M] = R
-    full[M:, M:] = np.eye(op.M - M)
-    want = x @ full.T
-    np.testing.assert_allclose(y / scale, want / scale, atol=6e-2)
-
-
-def test_int4_diagonal_exact():
-    """The d=0 block's unit diagonal is stripped before quantization and
-    re-added by the kernel, so R's exact 1.0 diagonal survives int4 even
-    when off-diagonal LD is weak (a pinned 1/7 scale would wreck it)."""
-    rng = np.random.default_rng(4)
-    band, _, _ = simulate_ld_band(50000, 256, bandwidth=24, rng=rng,
-                                  dtype=np.float64)
-    op = SymBandedLD.from_band(band, block_size=128, dtype="int4")
-    D = np.asarray(op.to_dense())[0]
-    np.testing.assert_allclose(np.diag(D), 1.0, atol=1e-7)
-    # identity vector through the kernel: y[j] ~ row sums, diagonal exact
-    x = np.zeros((1, op.M), np.float32)
-    x[0, 5] = 1.0
-    y = np.asarray(op.matvec(jnp.asarray(x)))
-    assert abs(y[0, 5] - D[5, 5]) < 1e-4
-
-
-def test_int4_resident_mode_rejected():
-    rng = np.random.default_rng(3)
-    band, _, _ = simulate_ld_band(10000, 256, bandwidth=32, rng=rng,
-                                  dtype=np.float64)
-    op = dataclasses.replace(
-        SymBandedLD.from_band(band, block_size=128, dtype="int4"),
-        mode="resident")
-    with pytest.raises(ValueError, match="no resident kernel"):
-        op.matvec(jnp.ones((2, op.M), jnp.float32))
-
-
-def test_int4_engine_close_to_f32():
-    """Full VAMP trajectory with int4 LD storage: coarser than int8 but
-    the fixed point must stay in the same basin (correlated final xhat)."""
-    rng = np.random.default_rng(9)
-    N, M, lam, h2, iters = 20000, 400, 0.1, 0.7, 4
-    band, r, x0 = simulate_ld_band(N, M, bandwidth=32, rng=rng,
-                                   dtype=np.float64, h2=h2, lam=lam)
-    u = (rng.integers(0, 2, size=(iters, 1, 512)) * 2 - 1).astype(np.float64)
-    cfg = VampConfig(prior_update="em", dtype="float32", cg_maxit=200,
-                     cg_rtol=1e-7)
-    prior = PriorState.create(lam, [1.0], [h2 / int(M * lam) * N])
-    hists = {}
-    for name, op in [
-            ("f32", SymBandedLD.from_band(band, block_size=128,
-                                          dtype="float32")),
-            ("int4", SymBandedLD.from_band(band, block_size=128,
-                                           dtype="int4"))]:
-        Mp = op.M
-        mask = np.zeros(Mp)
-        mask[:M] = 1.0
-        rp = np.zeros(Mp)
-        rp[:M] = r
-        inputs = VampInputs(op=op, r=jnp.asarray(rp, jnp.float32)[None],
-                            a=jnp.asarray([1.0], jnp.float32),
-                            N=jnp.asarray([float(N)], jnp.float32),
-                            mask=jnp.asarray(mask, jnp.float32))
-        hists[name] = VampEngine(inputs, cfg, prior).run(
-            iters, fixed_u=u[:, :, :Mp], M_out=M)
-    for it in range(iters):
-        a, b = hists["int4"]["xhat1"][it], hists["f32"]["xhat1"][it]
-        denom = np.linalg.norm(b) + 1e-30
-        assert np.linalg.norm(a - b) / denom < 0.15, f"iteration {it}"
-    ca = np.corrcoef(hists["int4"]["xhat1"][-1], hists["f32"]["xhat1"][-1])[0, 1]
-    assert ca > 0.995
-
-
-def test_int4_sharded_matches_unsharded():
-    """int4 through the shard_map path: the 4-d per-row scales leaf must
-    shard over block rows alongside the packed blocks."""
-    from sgvamp_tpu.parallel.sharding import make_mesh, shard_inputs
-
-    rng = np.random.default_rng(10)
-    M, B, bw = 512, 64, 100
-    band, r, _ = simulate_ld_band(20000, M, bandwidth=bw, rng=rng,
-                                  dtype=np.float64)
-    op = SymBandedLD.from_band(band, block_size=B, dtype="int4")
-    x = rng.normal(size=(2, op.M)).astype(np.float32)
-    want = np.asarray(op.matvec(jnp.asarray(x)))
-    mesh = make_mesh(1, 4)
-    inputs = VampInputs(op=op, r=jnp.asarray(r, jnp.float32)[None],
-                        a=jnp.asarray([1.0]), N=jnp.asarray([20000.0]))
-    sh = shard_inputs(inputs, mesh)
-    assert sh.op.mesh is mesh
-    assert "shard" in str(sh.op.scales.sharding.spec)
-    got = np.asarray(sh.op.matvec(jnp.asarray(x)))
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_matches_banded_operator_in_engine():
@@ -466,7 +373,7 @@ def test_matches_banded_operator_in_engine():
     prior = PriorState.create(lam, [1.0], [h2 / int(M * lam) * N])
     hists = {}
     for name, op in [("einsum", BandedLD.from_band(band, block_size=128)),
-                     ("pallas", SymBandedLD.from_band(band, block_size=128))]:
+                     ("sym", SymBandedLD.from_band(band, block_size=128))]:
         Mp = op.M
         mask = np.zeros(Mp)
         mask[:M] = 1.0
@@ -477,126 +384,17 @@ def test_matches_banded_operator_in_engine():
         hists[name] = VampEngine(inputs, cfg, prior).run(
             iters, fixed_u=u[:, :, :Mp], M_out=M)
     for it in range(iters):
-        np.testing.assert_allclose(hists["pallas"]["xhat1"][it],
+        np.testing.assert_allclose(hists["sym"]["xhat1"][it],
                                    hists["einsum"]["xhat1"][it],
                                    rtol=1e-9, atol=1e-11)
 
 
-@pytest.mark.parametrize("B,bw,G", [(128, 200, 2), (64, 96, 4)])
-def test_hybrid_matvec(B, bw, G):
-    """Hybrid int8/int4 storage (d=0 block at full int8 precision as
-    column halves in slots 0,1; far blocks packed int4): kernel matches
-    its own dequantized matrix to bf16-compute accuracy, the diagonal
-    block quantizes at int8 error, and traffic is 2/3 of int8's."""
-    rng = np.random.default_rng(12)
-    M = 768
-    band, _, _ = simulate_ld_band(10000, M, bandwidth=bw, rng=rng,
-                                  dtype=np.float64)
-    op = dataclasses.replace(
-        SymBandedLD.from_band(band, block_size=B, dtype="hybrid"),
-        rows_per_step=G)
-    assert op.hybrid and not op.packed and not op.quantized
-    assert str(op.upper.dtype) == "int8"
-    assert op.upper.shape[2] == op.hb + 2  # slots 0,1 = d=0 halves
-    assert op.upper.shape[-1] == B // 2
-    assert op.scales.shape == (1, op.nb, op.hb + 2, B)
-    int8_bytes = op.nb * (op.hb + 1) * B * B  # int8 storage of same band
-    assert op.bytes_per_pass() < (op.hb + 2) / (2 * (op.hb + 1)) * int8_bytes \
-        + op.scales.size * 4 + 1
-    x = rng.normal(size=(2, op.M))
-    y = np.asarray(op.matvec(jnp.asarray(x, jnp.float32)), np.float64)
-    Rq = np.asarray(op.to_dense(), np.float64)[0]
-    want_q = x.astype(jnp.bfloat16).astype(np.float64) @ Rq.T
-    np.testing.assert_allclose(y, want_q,
-                               atol=5e-2 * np.abs(want_q).max(), rtol=2e-2)
-    # quantization error split: diagonal block at int8 error, far at int4
-    Rf = np.zeros((op.M, op.M))
-    Rf[:M, :M] = band_to_dense(band)
-    Rf[range(M, op.M), range(M, op.M)] = 1.0
-    err = np.abs(Rq - Rf)
-    ii, jj = np.meshgrid(np.arange(op.M) // B, np.arange(op.M) // B,
-                         indexing="ij")
-    diag_err = err[ii == jj].max()
-    far_err = err[ii != jj].max()
-    assert diag_err < far_err / 4, (diag_err, far_err)
-
-
-def test_hybrid_rescues_int4_cg_breakdown():
-    """THE point of hybrid storage: on the ill-conditioned strength-4
-    panel (the BENCH_AB solve_by_dtype configuration) pure-int4
-    quantization makes A = 40*R + I INDEFINITE - CG breaks down and
-    production rtol=1e-5 solves stall at maxiter - while hybrid keeps A
-    SPD and CG converges."""
-    from sgvamp_tpu.core.cg import cg_batched
-
-    rng = np.random.default_rng(0)
-    M, bw, B = 1024, 256, 128  # the bench geometry (hb = 2)
-    band, r, _ = simulate_ld_band(20000, M, bw, h2=0.7, lam=0.01, rng=rng,
-                                  dtype=np.float32, strength=4.0, decay=0.97)
-    ops = {d: SymBandedLD.from_band(band, block_size=B, dtype=d)
-           for d in ("int4", "hybrid")}
-    emin = {}
-    for name, op in ops.items():
-        D = np.asarray(op.to_dense()[0], np.float64)
-        emin[name] = np.linalg.eigvalsh(40.0 * 0.5 * (D + D.T)
-                                        + np.eye(op.M))[0]
-    assert emin["int4"] < 0.0, f"panel no longer breaks int4: {emin}"
-    assert emin["hybrid"] > 0.0, f"hybrid not SPD: {emin}"
-
-    b = jnp.asarray(r, jnp.float32).reshape(1, -1)
-    conv = {}
-    for name, op in ops.items():
-        def mv(v, op=op):
-            return 40.0 * op.matvec(v) + v
-        res = cg_batched(mv, b, jnp.zeros_like(b), maxiter=200, rtol=1e-5)
-        conv[name] = (bool(res.converged[0]), int(res.iters[0]))
-    assert not conv["int4"][0], conv
-    assert conv["hybrid"][0], conv
-
-
-def test_hybrid_sharded_matches_unsharded():
-    """Hybrid through the shard_map path: slots and per-row scales shard
-    over block rows like int4's."""
-    from sgvamp_tpu.parallel.sharding import make_mesh, shard_inputs
-
-    rng = np.random.default_rng(13)
-    M, B, bw = 512, 64, 100
-    band, r, _ = simulate_ld_band(20000, M, bandwidth=bw, rng=rng,
-                                  dtype=np.float64)
-    op = SymBandedLD.from_band(band, block_size=B, dtype="hybrid")
-    x = rng.normal(size=(2, op.M)).astype(np.float32)
-    want = np.asarray(op.matvec(jnp.asarray(x)))
-    mesh = make_mesh(1, 4)
-    inputs = VampInputs(op=op, r=jnp.asarray(r, jnp.float32)[None],
-                        a=jnp.asarray([1.0]), N=jnp.asarray([20000.0]))
-    sh = shard_inputs(inputs, mesh)
-    assert sh.op.mesh is mesh
-    got = np.asarray(sh.op.matvec(jnp.asarray(x)))
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
-
-
-def test_hybrid_engine_close_to_f32():
-    """Full VAMP trajectory with hybrid LD storage tracks f32 at int8-ish
-    fidelity (the far-block int4 error is small on benign panels)."""
-    rng = np.random.default_rng(14)
-    N, M, lam, h2, iters = 20000, 512, 0.05, 0.7, 3
-    band, r, x0 = simulate_ld_band(N, M, 96, h2=h2, lam=lam, rng=rng,
-                                   dtype=np.float32)
-    cm = max(int(M * lam), 1)
-    cfg = VampConfig(prior_update="em", dtype="float32", cg_maxit=100,
-                     cg_rtol=1e-6, rho=0.5, lmmse_damp=True)
-    prior = PriorState.create(lam, [1.0], [h2 / cm * N])
-    u = (np.random.default_rng(15).integers(0, 2, (iters, 1, M)) * 2
-         - 1).astype(np.float64)
-    hists = {}
-    for name, op in [("f32", SymBandedLD.from_band(band, block_size=128)),
-                     ("hybrid", SymBandedLD.from_band(band, block_size=128,
-                                                      dtype="hybrid"))]:
-        inputs = VampInputs(op=op, r=jnp.asarray(r, jnp.float32)[None],
-                            a=jnp.asarray([1.0], jnp.float32),
-                            N=jnp.asarray([float(N)], jnp.float32))
-        hists[name] = VampEngine(inputs, cfg, prior).run(iters, fixed_u=u)
-    for it in range(iters):
-        a, b = hists["hybrid"]["xhat1"][it], hists["f32"]["xhat1"][it]
-        err = np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-30)
-        assert err < 5e-2, f"it={it}: {err:.3e}"
+@pytest.mark.gpu
+def test_compiled_kernel_matches_reference(gpu):
+    """The Triton-compiled kernel on the card (no interpreter) vs the plain
+    reference, int8 storage."""
+    op, _, x = _problem(128, 200, "int8", K=2, S=2, M=4096, seed=13)
+    xj = jnp.asarray(x, jnp.float32)
+    yk = _with(op, "kernel").matvec(xj)
+    yr = _with(op, "reference").matvec(xj)
+    _close(yk, np.asarray(yr, np.float64), 1e-6)

@@ -1,6 +1,6 @@
 """Precision studies and failure-detection tests.
 
-f32 is the production TPU dtype; these tests document how closely f32
+f32 is the production accelerator dtype; these tests document how closely f32
 trajectories track f64 on a well-posed problem (the fidelity claim the
 README makes) and that the non-finite abort guard fires.
 """
@@ -8,9 +8,9 @@ README makes) and that the non-finite abort guard fires.
 import jax.numpy as jnp
 import numpy as np
 
-from sgvamp_tpu import PriorState, VampConfig, VampEngine, VampInputs
-from sgvamp_tpu.core.operators import BandedLD, DenseLD
-from sgvamp_tpu.data.simulate import simulate_ld_band, simulate_single
+from sgvamp import PriorState, VampConfig, VampEngine, VampInputs
+from sgvamp.core.operators import BandedLD, DenseLD
+from sgvamp.data.simulate import simulate_ld_band, simulate_single
 
 
 def test_f32_tracks_f64_trajectory():
@@ -58,7 +58,7 @@ def test_nonfinite_abort_guard():
 def _first_nonfinite(band, r, x0, K, guards, iters=16):
     """Run K replicated cohorts (statistically degenerate on purpose) and
     return the first iteration with a non-finite state leaf (or None)."""
-    from sgvamp_tpu.core import vamp as V
+    from sgvamp.core import vamp as V
     import jax
 
     M = r.shape[0]

@@ -15,14 +15,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sgvamp_tpu.config import VampConfig
-from sgvamp_tpu.core.cg import cg_batched
-from sgvamp_tpu.core.operators import BandedLD, BlockSparseLD, DenseLD
-from sgvamp_tpu.core.precond import apply_block_jacobi, block_jacobi_inverse
-from sgvamp_tpu.core.prior import PriorState
-from sgvamp_tpu.core.vamp import VampEngine, VampInputs
-from sgvamp_tpu.data.simulate import simulate_ld_band
-from sgvamp_tpu.ops.band_kernel import SymBandedLD
+from sgvamp.config import VampConfig
+from sgvamp.core.cg import cg_batched
+from sgvamp.core.operators import BandedLD, BlockSparseLD, DenseLD
+from sgvamp.core.precond import apply_block_jacobi, block_jacobi_inverse
+from sgvamp.core.prior import PriorState
+from sgvamp.core.vamp import VampEngine, VampInputs
+from sgvamp.data.simulate import simulate_ld_band
+from sgvamp.ops.band_kernel import SymBandedLD
 
 
 def _problem(M=1024, bw=96, B=128, seed=0, s=0.05):
@@ -148,7 +148,6 @@ def test_diag_blocks_match_dense_all_operators():
     band, _, _ = simulate_ld_band(20000, M, bandwidth=bw, rng=rng,
                                   dtype=np.float64)
     sym = SymBandedLD.from_band(band, block_size=B, s=s)
-    slab = SymBandedLD.from_band(band, block_size=B, s=s, layout="slab")
     banded = BandedLD.from_band(band, block_size=B, s=s)
     dense = DenseLD(mats=banded.to_dense() * (1 / (1 - s))
                     - s / (1 - s) * jnp.eye(M)[None], s=s)
@@ -158,7 +157,7 @@ def test_diag_blocks_match_dense_all_operators():
         sym.to_dense()[0] * (1 / (1 - s)) - s / (1 - s) * np.eye(M)))
     bsp = BlockSparseLD.from_csr([R], block_size=B, s=s)
 
-    for name, op in [("sym", sym), ("slab", slab), ("banded", banded),
+    for name, op in [("sym", sym), ("banded", banded),
                      ("blocksparse", bsp)]:
         D = np.asarray(op.diag_blocks(), np.float64)
         dn = np.asarray(op.to_dense()[0], np.float64)
@@ -219,7 +218,7 @@ def test_engine_trajectory_parity_with_precond():
 def test_engine_precond_sharded_matches_unsharded():
     """The preconditioner build (diag_blocks + batched inverse) and apply
     must survive the (cohort, shard) mesh: sharded == unsharded."""
-    from sgvamp_tpu.parallel.sharding import make_mesh
+    from sgvamp.parallel.sharding import make_mesh
 
     op, band, r, x0 = _problem()
     iters = 3
@@ -244,7 +243,7 @@ def test_engine_precond_sharded_matches_unsharded():
 def test_eig_cache_matches_direct_inverse():
     """block_jacobi_from_eig(Q, lam) must equal block_jacobi_inverse for
     any (gamw, gam2) - the scalars enter only through the eigenvalues."""
-    from sgvamp_tpu.core.precond import block_jacobi_eig, block_jacobi_from_eig
+    from sgvamp.core.precond import block_jacobi_eig, block_jacobi_from_eig
 
     op, band, r, _ = _problem(M=1024, bw=96, B=128)
     Q, lam = block_jacobi_eig(op, 64)
@@ -283,30 +282,14 @@ def test_engine_eig_cache_trajectory_matches_direct():
         assert err < 1e-8, f"eig/direct diverged at it={it}: {err:.3e}"
 
 
-def test_diag_blocks_hybrid_matches_dense():
-    """Hybrid storage's diag_blocks() (int8 column-half slots 0,1 plus
-    the stripped unit diagonal) must equal its own to_dense()'s diagonal
-    blocks, regularization included."""
-    rng = np.random.default_rng(6)
-    M, bw, B, s = 512, 96, 64, 0.1
-    band, _, _ = simulate_ld_band(20000, M, bandwidth=bw, rng=rng,
-                                  dtype=np.float32)
-    op = SymBandedLD.from_band(band, block_size=B, s=s, dtype="hybrid")
-    D = np.asarray(op.diag_blocks(), np.float64)
-    dn = np.asarray(op.to_dense()[0], np.float64)
-    want = np.stack([dn[i * B:(i + 1) * B, i * B:(i + 1) * B]
-                     for i in range(op.M // B)])
-    np.testing.assert_allclose(D[0], want, rtol=1e-5, atol=1e-6)
-
-
-def test_engine_precond_with_hybrid_operator():
-    """The eig-cached preconditioner over HYBRID LD storage (diag_blocks
-    reconstructs the d=0 block from its int8 column-half slots): the
-    preconditioned run converges its solves and tracks the plain run."""
+def test_engine_precond_with_int8_operator():
+    """The eig-cached preconditioner over int8 LD storage (diag_blocks
+    dequantizes the d=0 blocks): the preconditioned run converges its
+    solves and tracks the plain run."""
     rng = np.random.default_rng(8)
     band, r, x0 = simulate_ld_band(20000, 1024, bandwidth=96, rng=rng,
                                    dtype=np.float32, h2=0.7, lam=0.05)
-    op = SymBandedLD.from_band(band, block_size=128, s=0.05, dtype="hybrid")
+    op = SymBandedLD.from_band(band, block_size=128, s=0.05, dtype="int8")
     iters = 3
     u_seq = (np.random.default_rng(4).integers(0, 2, size=(iters, 1, op.M))
              * 2 - 1).astype(np.float64)
@@ -326,8 +309,8 @@ def test_engine_precond_with_hybrid_operator():
     for it in range(iters):
         a, b = h_pre["xhat1"][it], h_plain["xhat1"][it]
         err = np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-30)
-        # f32 compute over bf16 in-kernel matvecs: the two CG paths
-        # agree to the storage-noise class, not to the cg_rtol
-        assert err < 1e-2, f"hybrid precond diverged at it={it}: {err:.3e}"
+        # f32 compute over quantized blocks: the two CG paths agree to
+        # the storage-noise class, not to the cg_rtol
+        assert err < 1e-2, f"int8 precond diverged at it={it}: {err:.3e}"
     assert int(np.max(h_pre["cg1_iters"][-1])) <= int(
         np.max(h_plain["cg1_iters"][-1]))

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import scipy.optimize
 
-from sgvamp_tpu.core.prior import PriorState, em_loop, em_update, mle_update
+from sgvamp.core.prior import PriorState, em_loop, em_update, mle_update
 
 
 def _problem(rng, K=2, M=120, L=3):
@@ -249,7 +249,7 @@ def test_kkt_closed_form_jacobian_matches_autodiff():
     residual must equal the standalone one."""
     import jax
 
-    from sgvamp_tpu.core.prior import _kkt_residual, _kkt_residual_and_jac
+    from sgvamp.core.prior import _kkt_residual, _kkt_residual_and_jac
 
     rng = np.random.default_rng(0)
     K, M, L = 3, 64, 4
@@ -318,7 +318,7 @@ def test_mle_accepts_at_large_M_f32():
     """The MLE acceptance gate scales with M: the KKT residual's gradient
     term sums over markers (O(M) magnitude), so an absolute 1e-6 gate
     demanded ~1e-11 relative accuracy at biobank M and every f32 update
-    was rejected (observed at M=512k on TPU). A realistic f32 problem at
+    was rejected (observed at M=512k in f32). A realistic f32 problem at
     M=65536 must ACCEPT and agree with EM's sparsity estimate."""
     K, M = 1, 65536
     rng = np.random.default_rng(0)

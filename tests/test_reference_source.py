@@ -33,12 +33,20 @@ import pytest
 import scipy.sparse
 from scipy.sparse.linalg import cg as scipy_cg
 
-from sgvamp_tpu.config import VampConfig
-from sgvamp_tpu.core.operators import DenseLD
-from sgvamp_tpu.core.prior import PriorState
-from sgvamp_tpu.core.vamp import VampEngine, VampInputs
+from sgvamp.config import VampConfig
+from sgvamp.core.operators import DenseLD
+from sgvamp.core.prior import PriorState
+from sgvamp.core.vamp import VampEngine, VampInputs
 
 REF_PATH = "/root/reference/src/sgvamp.py"
+
+
+@pytest.fixture(autouse=True)
+def reference_source():
+    """These tests drive the reference's own source; skip them where that
+    checkout is absent (tests/oracle.py stays the reference elsewhere)."""
+    if not os.path.exists(REF_PATH):
+        pytest.skip(f"reference source not found at {REF_PATH}")
 
 
 def load_reference_module():

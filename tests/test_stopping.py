@@ -12,10 +12,10 @@ replicated-cohort panel that NaNs an unguarded fixed-count run.
 import jax.numpy as jnp
 import numpy as np
 
-from sgvamp_tpu import (PriorState, StopMonitor, VampConfig, VampEngine,
-                        VampInputs)
-from sgvamp_tpu.core.operators import BandedLD
-from sgvamp_tpu.data.simulate import simulate_ld_band
+from sgvamp import (PriorState, StopMonitor, VampConfig, VampEngine,
+                    VampInputs)
+from sgvamp.core.operators import BandedLD
+from sgvamp.data.simulate import simulate_ld_band
 
 
 def test_monitor_converged():
@@ -117,8 +117,8 @@ def test_engine_converged_stop():
 def test_cli_stop_tol_host_loop(tmp_path):
     """--stop-tol stops the host-loop CLI run early: fewer CSV rows than
     the requested iteration count, identical prefix to the full run."""
-    from sgvamp_tpu.cli import main as cli_main
-    from sgvamp_tpu.cli import simulate as cli_sim
+    from sgvamp.cli import main as cli_main
+    from sgvamp.cli import simulate as cli_sim
 
     d = tmp_path / "sim"
     d.mkdir()
@@ -144,7 +144,7 @@ def test_cli_stop_tol_host_loop(tmp_path):
     assert rows["stop"][1:] == rows["full"][1:len(rows["stop"])]
     # a stop-armed run persists the monitor-selected iterate as a file;
     # a parity run (no stop flags) does not
-    from sgvamp_tpu.io.writers import read_bin
+    from sgvamp.io.writers import read_bin
     best = tmp_path / "stop" / "t_xhat_best.bin"
     assert best.exists()
     assert not (tmp_path / "full" / "t_xhat_best.bin").exists()
@@ -209,8 +209,8 @@ def test_cli_stop_fused_chunked(tmp_path):
     stops mid-chunk, outputs end exactly where the host loop's do, and
     nothing past the stop iteration reaches disk (the chunk's remaining
     iterations are skipped on device)."""
-    from sgvamp_tpu.cli import main as cli_main
-    from sgvamp_tpu.cli import simulate as cli_sim
+    from sgvamp.cli import main as cli_main
+    from sgvamp.cli import simulate as cli_sim
 
     d = tmp_path / "sim"
     d.mkdir()
@@ -243,7 +243,7 @@ def test_cli_stop_fused_chunked(tmp_path):
     assert (out / f"t_xhat_it_{n - 1}.bin").exists()
     assert not (out / f"t_xhat_it_{n}.bin").exists()
     # the selected-iterate file matches the host loop's
-    from sgvamp_tpu.io.writers import read_bin
+    from sgvamp.io.writers import read_bin
     np.testing.assert_allclose(
         read_bin(str(out / "t_xhat_best.bin"), 200),
         read_bin(str(out_host / "t_xhat_best.bin"), 200), rtol=1e-12)
@@ -254,13 +254,13 @@ def test_fused_stop_sharded_matches_unsharded():
     StopState (prev/best xhat1 are (M,) leaves riding sharding
     propagation) must reproduce the unsharded stop decision and selected
     iterate."""
-    from sgvamp_tpu.parallel.sharding import make_mesh
+    from sgvamp.parallel.sharding import make_mesh
 
     engine, _ = _degenerate_engine(K=2, M=1024)
     _, _, mon_ref = engine.run_scan_stoppable(16, stop_gam1_drop=10.0)
     assert bool(mon_ref.done)
 
-    from sgvamp_tpu.core.vamp import VampEngine
+    from sgvamp.core.vamp import VampEngine
     sharded = VampEngine(engine.inputs, engine.cfg, engine.prior,
                          gamw=engine.gamw0, gam1=engine.gam10,
                          mesh=make_mesh(2, 4))
@@ -280,7 +280,7 @@ def test_stop_state_no_converged_on_nonfinite():
     (the host monitor's `not finite` branch short-circuits the tol
     check; tol-only runs then surface the non-finite state instead of a
     clean 'converged')."""
-    from sgvamp_tpu.core.vamp import StopState, stop_state_update
+    from sgvamp.core.vamp import StopState, stop_state_update
 
     x = jnp.ones(16)
     mon = StopState.create(16, jnp.float32)
@@ -300,8 +300,8 @@ def test_stop_state_no_converged_on_nonfinite():
 def test_cli_fused_armed_resume_completed(tmp_path):
     """Re-running a COMPLETED armed fused checkpointed run with --resume
     must exit cleanly (no chunk executes; there is no stop state)."""
-    from sgvamp_tpu.cli import main as cli_main
-    from sgvamp_tpu.cli import simulate as cli_sim
+    from sgvamp.cli import main as cli_main
+    from sgvamp.cli import simulate as cli_sim
 
     d = tmp_path / "sim"
     d.mkdir()

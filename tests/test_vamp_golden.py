@@ -12,10 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sgvamp_tpu.config import VampConfig
-from sgvamp_tpu.core.operators import DenseLD
-from sgvamp_tpu.core.prior import PriorState
-from sgvamp_tpu.core.vamp import VampEngine, VampInputs
+from sgvamp.config import VampConfig
+from sgvamp.core.operators import DenseLD
+from sgvamp.core.prior import PriorState
+from sgvamp.core.vamp import VampEngine, VampInputs
 
 from oracle import ReferenceOracle
 
